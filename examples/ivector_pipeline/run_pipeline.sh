@@ -8,9 +8,9 @@
 # and *.ndx lists.  See scripts/milestone_eer.py for a synthetic corpus
 # generator exercising the same DAG.
 set -e
-python -m lia_ral_tpu.tools.norm_feat          --config 00_NormFeat.cfg
-python -m lia_ral_tpu.tools.train_world        --config 01_TrainWorld.cfg
-python -m lia_ral_tpu.tools.total_variability  --config 02_TotalVariability.cfg
-python -m lia_ral_tpu.tools.iv_extractor       --config 03_IvExtractor.cfg
-python -m lia_ral_tpu.tools.iv_test            --config 04_IvTest_plda.cfg
+python -m lia_ral.tools.norm_feat          --config 00_NormFeat.cfg
+python -m lia_ral.tools.train_world        --config 01_TrainWorld.cfg
+python -m lia_ral.tools.total_variability  --config 02_TotalVariability.cfg
+python -m lia_ral.tools.iv_extractor       --config 03_IvExtractor.cfg
+python -m lia_ral.tools.iv_test            --config 04_IvTest_plda.cfg
 echo "scores written to ./scores_plda.nist"

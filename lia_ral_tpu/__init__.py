@@ -1,109 +1,43 @@
-"""lia_ral_tpu — a TPU-native speaker-recognition framework.
+"""The package's former import name, kept so existing scripts still run.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-ALIZE-Speaker-Recognition/LIA_RAL (reference layout documented in SURVEY.md):
-
-- ``lia_ral_tpu.config``   — key/value config files + CLI overrides + schemas
-  (capability parity with ALIZE Config/ConfigChecker/CmdLine).
-- ``lia_ral_tpu.io``       — feature (.prm SPRO3/SPRO4/RAW), label (.lbl),
-  mixture (.gmm XML/RAW), matrix (.matx), list (NDX/XList) and NIST score IO.
-- ``lia_ral_tpu.frontend`` — MFCC, SDC, CMVN/warping, energy VAD.
-- ``lia_ral_tpu.gmm``      — diagonal-GMM model pytrees, fused LLK/posterior/
-  sufficient-stat kernels, UBM EM, MAP adaptation, trial scoring.
-- ``lia_ral_tpu.fa``       — Baum-Welch stats, TotalVariability (i-vector),
-  JFA eigenvoice/eigenchannel/D engines.
-- ``lia_ral_tpu.backend``  — i-vector backends: length-norm/EFR, LDA, WCCN,
-  two-cov, G-PLDA training + scoring, score normalization (zt-norm).
-- ``lia_ral_tpu.seg``      — segment tools, HMM/Viterbi, diarization,
-  clustering criteria.
-- ``lia_ral_tpu.parallel`` — device-mesh sharding of stat accumulation
-  (data-parallel psum), multi-host helpers.
-- ``lia_ral_tpu.api``      — high-level speaker-detection API + TCP server.
-- ``lia_ral_tpu.tools``    — CLI entry points mirroring the reference
-  binaries (TrainWorld, TrainTarget, ComputeTest, ...).
-
-The reference implementation is CPU C++ (pthread map-reduce over frames);
-this framework re-expresses every hot loop as batched matmul/XLA kernels on
-the MXU with frame-axis masking, and every thread-pool merge as a psum.
+``import <this name>.X`` gives the very module object ``lia_ral.X`` (one
+module under two names, so classes and state are shared), and
+``python -m <this name> <Tool>`` runs the ``lia_ral`` CLI.  New code
+imports ``lia_ral``.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+import warnings
 
-# Numerics default: multi-pass f32-grade matmuls.  The TPU MXU's default
-# precision for f32 operands is ONE bf16 pass, which rounds GMM
-# log-densities by ~5e-2 and softmax occupancies by several percent vs
-# the reference's f64 math (measured at K=2048 —
-# scripts/debug_fused.py), and silently degrades every linear-algebra
-# stage (TV L-solves, PLDA EM, WCCN Cholesky).  The reference computes
-# in double throughout; parity ("allclose on UBM parameters, i-vectors,
-# and trial scores", BASELINE.md) requires f32-grade numerics as the
-# default.  "high" (bf16x3, error ~2^-22) measures within 2x of the
-# single-pass speed and reaches the f32 accumulation floor on these
-# workloads (occupancy rel-err 3.2e-4 vs f64, identical to "highest" —
-# PERF.md), so it is the default; bf16 single-pass remains the explicit
-# speed knob (config key ``fastMath``, the analogue of the reference's
-# -ffast-math build flag, configure.ac:21), or set
-# LIA_RAL_TPU_FAST_MATH=1 before import.
-#
-# NOTE this is a PROCESS-GLOBAL side effect (it changes numerics/perf of
-# any other JAX code in the process).  LIA_RAL_TPU_NO_GLOBAL_PRECISION=1
-# (set before first import) leaves the global config untouched; the
-# Pallas kernels keep their own explicit bf16x3 arithmetic either way.
-import os as _os
+import lia_ral
+from lia_ral import __version__, compile_cache_dir  # noqa: F401
 
-if (_os.environ.get("LIA_RAL_TPU_FAST_MATH", "0") != "1"
-        and _os.environ.get("LIA_RAL_TPU_NO_GLOBAL_PRECISION", "0") != "1"):
-    import jax as _jax
+_OLD, _NEW = __name__, lia_ral.__name__
+warnings.warn(f"the package {_OLD!r} is now {_NEW!r}; import {_NEW!r}",
+              DeprecationWarning, stacklevel=2)
 
-    _jax.config.update("jax_default_matmul_precision", "high")
 
-# Persistent XLA compilation cache: the operational model is a file DAG
-# of many short-lived CLI processes (the reference's binaries), so each
-# process would otherwise re-pay every 20-40 s device compile.  A shared
-# on-disk cache makes re-runs and downstream tools compile-free.  Opt
-# out with LIA_RAL_TPU_COMPILE_CACHE=0, or point it at a custom dir.
-_cache_dir = _os.environ.get("LIA_RAL_TPU_COMPILE_CACHE", "")
-if _cache_dir != "0":
-    try:
-        import jax as _jax
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Serves ``<old>.X`` as the module ``lia_ral.X``."""
 
-        _cache_path = (_cache_dir
-                       or _os.path.expanduser("~/.cache/lia_ral_tpu_xla"))
-        _jax.config.update("jax_compilation_cache_dir", _cache_path)
-        # cache every executable (default only >1 s compiles) and never
-        # skip on fast compile times
-        _jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    def find_spec(self, fullname, path=None, target=None):
+        if (not fullname.startswith(_OLD + ".")
+                or fullname == _OLD + ".__main__"):
+            return None
+        return importlib.util.spec_from_loader(fullname, self)
 
-        # JAX never evicts cache entries; bound the directory with a
-        # best-effort LRU trim so long-lived production hosts don't
-        # grow it unboundedly.  Eviction order is last-ACCESS time
-        # (mtime never changes after a cache write, which would make
-        # hot stable entries the first victims; atime is relatime-
-        # granular but directionally right).  Cap via
-        # LIA_RAL_TPU_COMPILE_CACHE_GB (default 8).
-        _cap = float(_os.environ.get("LIA_RAL_TPU_COMPILE_CACHE_GB",
-                                     "8")) * (1 << 30)
-        try:
-            _entries = []
-            with _os.scandir(_cache_path) as _it:
-                for _e in _it:
-                    if _e.is_file():
-                        _st = _e.stat()
-                        _entries.append((max(_st.st_atime, _st.st_mtime),
-                                         _st.st_size, _e.path))
-            _total = sum(_s for _, _s, _ in _entries)
-            if _total > _cap:
-                _entries.sort()
-                for _, _sz, _p in _entries:
-                    try:
-                        _os.unlink(_p)
-                    except OSError:
-                        continue
-                    _total -= _sz
-                    if _total <= _cap * 0.8:
-                        break
-        except OSError:
-            pass
-    except Exception:   # cache support is best-effort per backend
-        pass
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        # the import system stamps ``spec`` on the module; keep its own
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        module.__spec__ = module.__spec__.loader_state
+
+
+if not any(isinstance(f, _Alias) for f in sys.meta_path):
+    sys.meta_path.insert(0, _Alias())

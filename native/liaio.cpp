@@ -1,11 +1,11 @@
-// liaio — native feature-file I/O for lia_ral_tpu.
+// liaio — native feature-file I/O for lia_ral.
 //
 // The reference's runtime layer is C++ (ALIZE FeatureServer and the file
 // readers behind it, SURVEY.md §1.1); this library provides the
 // equivalent native hot path for the new framework: SPRO3/SPRO4/RAW
 // parsing with byte swapping, column masking, and multi-file
 // concatenated loading, exposed through a minimal C ABI consumed via
-// ctypes (lia_ral_tpu/io/native.py).  Python remains the fallback.
+// ctypes (lia_ral/io/native.py).  Python remains the fallback.
 //
 // Build: make -C native   (g++ -O3 -shared -fPIC)
 

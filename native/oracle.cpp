@@ -2,7 +2,7 @@
 //
 // Re-implements, in double precision and the reference's algorithmic
 // structure, the four stages of the LIA_RAL speaker-verification chain
-// that the TPU pipeline runs in f32/bf16 — so the pipeline's accuracy
+// that the JAX pipeline runs in f32/bf16 — so the pipeline's accuracy
 // can be measured as "EER delta / score deviation vs the reference's
 // math" (the BASELINE.md north star), not just against itself:
 //
@@ -213,7 +213,7 @@ EmAcc em_accumulate(const double *x, int64_t n, const Gmm &g, int threads) {
 
 Gmm m_step(const EmAcc &acc, int64_t K, int64_t D) {
   // closed-form getEM (ALIZE MixtureStat::getEM semantics; mirrors
-  // lia_ral_tpu/gmm/em.py m_step including its guards)
+  // lia_ral/gmm/em.py m_step including its guards)
   Gmm g;
   g.K = K; g.D = D;
   g.w.resize(K); g.mu.resize(K * D); g.cov.resize(K * D);

@@ -39,10 +39,10 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from lia_ral_tpu.api import RemoteSpkDetClient, SpkDetServer
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.gmm.em import TrainCfg, mixture_init, train_model
-    from lia_ral_tpu.gmm.map_adapt import MapCfg, adapt_model
+    from lia_ral.api import RemoteSpkDetClient, SpkDetServer
+    from lia_ral.config import Config
+    from lia_ral.gmm.em import TrainCfg, mixture_init, train_model
+    from lia_ral.gmm.map_adapt import MapCfg, adapt_model
 
     rng = np.random.default_rng(7)
     centers = rng.standard_normal((64, D)) * 2.0
@@ -120,7 +120,7 @@ def main():
     # here with per-thread instances, the same chip-contention shape
     # as N processes with warm compile caches), plus the batched
     # identify path (M speakers scored in ONE dispatch) ----------------
-    from lia_ral_tpu.api import SimpleSpkDetSystem
+    from lia_ral.api import SimpleSpkDetSystem
 
     def make_sys(n_speakers=1):
         s = SimpleSpkDetSystem(Config())

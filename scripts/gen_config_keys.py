@@ -1,6 +1,6 @@
 """Generate CONFIG_KEYS.md: every config key the framework reads.
 
-Scans lia_ral_tpu/ for cfg.get_str/get_int/get_float/get_bool/exists
+Scans lia_ral/ for cfg.get_str/get_int/get_float/get_bool/exists
 calls, collects (key, type, default, modules) and emits a markdown
 table — the audit surface for key-level parity with the reference's
 config vocabulary (ALIZE Config/ConfigChecker).
@@ -16,7 +16,7 @@ import sys
 from collections import defaultdict
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                    "lia_ral_tpu")
+                    "lia_ral")
 
 PAT = re.compile(
     r"""(?:cfg|ccfg|cfg2)\.(get_str|get_int|get_float|get_bool|exists)\(\s*
@@ -49,7 +49,7 @@ def main() -> None:
     out.write("# Config keys — the framework's full config vocabulary\n\n")
     out.write("Generated by `scripts/gen_config_keys.py` (scan of every "
               "`cfg.get_*` call).\nKeys are the reference's own names "
-              "(ALIZE Config vocabulary) plus the\ndocumented TPU "
+              "(ALIZE Config vocabulary) plus the\ndocumented "
               "additions (numThread semantics, fastMath/fastStats,\n"
               "statsBucketFrames/statsBatchSize, speakerChunk, ...).\n\n")
     out.write(f"{len(keys)} keys.\n\n")

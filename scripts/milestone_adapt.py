@@ -43,11 +43,11 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
-    from lia_ral_tpu.backend.eval import eer, min_dcf
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.io.nist import read_nist_scores
-    from lia_ral_tpu.tools import (compute_test, norm_feat, spk_adapt,
+    from lia_ral.backend.eval import eer, min_dcf
+    from lia_ral.config import Config
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.io.nist import read_nist_scores
+    from lia_ral.tools import (compute_test, norm_feat, spk_adapt,
                                    train_target, train_world)
 
     # unsupervised adaptation assumes a reliable base system (the NIST

@@ -86,12 +86,12 @@ def main():
     args = ap.parse_args()
 
     import jax
-    from lia_ral_tpu.api import (RemoteSpkDetClient, SimpleSpkDetSystem,
+    from lia_ral.api import (RemoteSpkDetClient, SimpleSpkDetSystem,
                                  SpkDetServer)
-    from lia_ral_tpu.backend.eval import eer, min_dcf
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.gmm.em import TrainCfg, mixture_init, train_model
-    from lia_ral_tpu.gmm.model import GmmDiag
+    from lia_ral.backend.eval import eer, min_dcf
+    from lia_ral.config import Config
+    from lia_ral.gmm.em import TrainCfg, mixture_init, train_model
+    from lia_ral.gmm.model import GmmDiag
 
     rng = np.random.default_rng(20260822)
     t_all = time.perf_counter()

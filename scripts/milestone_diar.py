@@ -137,18 +137,18 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
 
-    from lia_ral_tpu.backend.eval import der
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.gmm.map_adapt import MapCfg, adapt_model
-    from lia_ral_tpu.gmm.model import GmmDiag
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.seg.clustering import segment_mean_llk
-    from lia_ral_tpu.io.labels import Segment
-    from lia_ral_tpu.tools import train_world
-    from lia_ral_tpu.tools.spkseg_tools import (acoustic_main, reseg_main,
+    from lia_ral.backend.eval import der
+    from lia_ral.config import Config
+    from lia_ral.gmm.map_adapt import MapCfg, adapt_model
+    from lia_ral.gmm.model import GmmDiag
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.seg.clustering import segment_mean_llk
+    from lia_ral.io.labels import Segment
+    from lia_ral.tools import train_world
+    from lia_ral.tools.spkseg_tools import (acoustic_main, reseg_main,
                                                 segmentation_main,
                                                 turn_detection_main)
-    from lia_ral_tpu.utils.stagemon import StageMonitor
+    from lia_ral.utils.stagemon import StageMonitor
 
     rng = np.random.default_rng(20260823)
     d = tempfile.mkdtemp(prefix="milestone_diar_")
@@ -346,7 +346,7 @@ def main():
             models.insert(ci, m_new)
         turn_lbl = [Segment(s.begin, s.end, f"c{ci}")
                     for ci, cl in enumerate(clusters) for s in cl]
-        from lia_ral_tpu.io.labels import write_label_file
+        from lia_ral.io.labels import write_label_file
         write_label_file(os.path.join(d, "convsp.turnclust.lbl"),
                          sorted(turn_lbl, key=lambda s: s.begin))
 

@@ -50,15 +50,15 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     import jax
 
-    from lia_ral_tpu.backend.eval import eer, min_dcf
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.io.matrix import write_matrix_file
-    from lia_ral_tpu.tools import iv_test
+    from lia_ral.backend.eval import eer, min_dcf
+    from lia_ral.config import Config
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.io.matrix import write_matrix_file
+    from lia_ral.tools import iv_test
 
     d = tempfile.mkdtemp(prefix="milestone_plda_")
     rng = np.random.default_rng(20260822)
-    from lia_ral_tpu.utils.stagemon import StageMonitor
+    from lia_ral.utils.stagemon import StageMonitor
     mon = StageMonitor()
     stage = mon.stage
 

@@ -1,4 +1,4 @@
-"""North-star parity: TPU pipeline vs the f64 reference-semantics oracle.
+"""North-star parity: the JAX pipeline vs the f64 reference-semantics oracle.
 
 BASELINE.md's target is score/EER parity "vs the reference C++
 binaries".  The binaries don't build here (ALIZE is an external
@@ -6,7 +6,7 @@ dependency), so `native/oracle` re-implements the reference's
 end-to-end math in double precision (see its header for the
 reproduced algorithms + file:line anchors).  This driver:
 
-  1. runs the REAL pipeline (CLI tools, f32/TPU) on the calibrated
+  1. runs the REAL pipeline (CLI tools, f32 on the device) on the calibrated
      small milestone corpus (scripts/milestone_eer.py corpus v2,
      same seed),
   2. exports the shared anchors (normalized features, the init GMM,
@@ -105,17 +105,17 @@ def main():
     ap.add_argument("--threads", type=int, default=8)
     args = ap.parse_args()
 
-    from lia_ral_tpu.backend.eval import eer
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.gmm.model import GmmDiag
-    from lia_ral_tpu.io.features import read_feature_file
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.io.matrix import read_matrix_file
-    from lia_ral_tpu.io.nist import read_nist_scores
-    from lia_ral_tpu.tools import (compute_test, iv_extractor, norm_feat,
+    from lia_ral.backend.eval import eer
+    from lia_ral.config import Config
+    from lia_ral.gmm.model import GmmDiag
+    from lia_ral.io.features import read_feature_file
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.io.matrix import read_matrix_file
+    from lia_ral.io.nist import read_nist_scores
+    from lia_ral.tools import (compute_test, iv_extractor, norm_feat,
                                    total_variability, train_target,
                                    train_world)
-    from lia_ral_tpu.tools.iv_norm import load_vectors
+    from lia_ral.tools.iv_norm import load_vectors
 
     # always invoke make: it is mtime-incremental, and an existing stale
     # binary must never silently stand in for edited oracle math (the

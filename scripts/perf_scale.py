@@ -34,18 +34,18 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    from lia_ral_tpu.backend.ivnorm import DevSet
-    from lia_ral_tpu.backend.plda import (PldaModel, plda_em_iteration,
+    from lia_ral.backend.ivnorm import DevSet
+    from lia_ral.backend.plda import (PldaModel, plda_em_iteration,
                                           plda_llr)
-    from lia_ral_tpu.fa.jfa import (JfaModel, JfaStats, estimate_y,
+    from lia_ral.fa.jfa import (JfaModel, JfaStats, estimate_y,
                                     jfa_d_iteration, jfa_u_iteration,
                                     jfa_v_iteration)
-    from lia_ral_tpu.fa.stats import BwStats
-    from lia_ral_tpu.fa.tv import (TvModel, approximate_tctc, estimate_w,
+    from lia_ral.fa.stats import BwStats
+    from lia_ral.fa.tv import (TvModel, approximate_tctc, estimate_w,
                                    estimate_w_eigen_decomposition,
                                    estimate_w_ubm_weight, eigen_decompose_w,
                                    init_t, tv_em_iteration, weighted_cov)
-    from lia_ral_tpu.gmm.model import GmmDiag
+    from lia_ral.gmm.model import GmmDiag
 
     K, D, R = 2048, 39, 400
     RV, RU = 300, 100

@@ -35,11 +35,11 @@ def main():
     args = ap.parse_args()
 
     import jax
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.gmm.model import GmmDiag
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.tools import compute_test
+    from lia_ral.config import Config
+    from lia_ral.gmm.model import GmmDiag
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.tools import compute_test
 
     d = tempfile.mkdtemp(prefix="stress_trials_")
     rng = np.random.default_rng(1)

@@ -18,9 +18,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.fa.stats import BwStats
-from lia_ral_tpu.fa.tv import estimate_w, init_t
-from lia_ral_tpu.gmm.model import GmmDiag
+from lia_ral.fa.stats import BwStats
+from lia_ral.fa.tv import estimate_w, init_t
+from lia_ral.gmm.model import GmmDiag
 
 K, D, R, S = 2048, 39, 400, 500
 rng = np.random.default_rng(0)

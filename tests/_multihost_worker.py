@@ -17,9 +17,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from lia_ral_tpu.gmm.kernels import em_stats
-from lia_ral_tpu.gmm.model import GmmDiag
-from lia_ral_tpu.parallel.distributed import (global_stats, host_local_batch,
+from lia_ral.gmm.kernels import em_stats
+from lia_ral.gmm.model import GmmDiag
+from lia_ral.parallel.distributed import (global_stats, host_local_batch,
                                               initialize_from_env,
                                               make_global_mesh,
                                               shard_file_list)
@@ -65,10 +65,10 @@ def main():
     # mesh, so the cross-session reduce_fn psums ride DCN between the
     # two processes (the multi-host form of PldaTools.cpp:2647's
     # mutex-guarded accumulators)
-    from lia_ral_tpu.backend.plda import PldaModel
-    from lia_ral_tpu.parallel.sharding import sharded_plda_em_iteration
+    from lia_ral.backend.plda import PldaModel
+    from lia_ral.parallel.sharding import sharded_plda_em_iteration
     vecs, labels, model = plda_problem()
-    from lia_ral_tpu.backend.ivnorm import DevSet
+    from lia_ral.backend.ivnorm import DevSet
     dev = DevSet.from_labels(vecs, labels)
     new = sharded_plda_em_iteration(mesh, model, dev)
     if jax.process_index() == 0:
@@ -78,7 +78,7 @@ def main():
     # cross-host TV E-step: speakers shard over the GLOBAL mesh, the
     # TvAccums psums ride DCN (the multi-host form of the threaded
     # estimateAandC accumulators, AccumulateTVStat.cpp:1944)
-    from lia_ral_tpu.parallel.sharding import sharded_tv_e_step
+    from lia_ral.parallel.sharding import sharded_tv_e_step
     stats_tv, tv_model = tv_problem()
     w_iv, acc = sharded_tv_e_step(mesh, stats_tv, tv_model, chunk=2)
     if jax.process_index() == 0:
@@ -92,7 +92,7 @@ def main():
     # AccumulateJFAStat.cpp:1573)
     from jax.experimental.multihost_utils import process_allgather
 
-    from lia_ral_tpu.parallel.sharding import sharded_jfa_v_iteration
+    from lia_ral.parallel.sharding import sharded_jfa_v_iteration
     jstats, jmodel, jx, jz = jfa_problem()
     jnew, y = sharded_jfa_v_iteration(mesh, jstats, jmodel, jx, jz)
     y_all = process_allgather(y, tiled=True)      # (S,rv) spans both hosts
@@ -102,7 +102,7 @@ def main():
     # cross-host i-vector extraction: utterances shard over the GLOBAL
     # mesh; no collective in the solve itself (per-utterance systems),
     # preconditioner basis replicated (sharded_estimate_w docstring)
-    from lia_ral_tpu.parallel.sharding import sharded_estimate_w
+    from lia_ral.parallel.sharding import sharded_estimate_w
     w_iv2 = sharded_estimate_w(mesh, stats_tv, tv_model, chunk=2,
                                pcg_iters=12)
     w_all = process_allgather(w_iv2, tiled=True)
@@ -112,8 +112,8 @@ def main():
 
 
 def tv_problem():
-    from lia_ral_tpu.fa.stats import BwStats
-    from lia_ral_tpu.fa.tv import init_t
+    from lia_ral.fa.stats import BwStats
+    from lia_ral.fa.tv import init_t
     rngt = np.random.default_rng(9)
     k, d, r, s = 6, 4, 3, 8
     gw = rngt.random(k) + 0.5
@@ -128,8 +128,8 @@ def tv_problem():
 
 
 def jfa_problem():
-    from lia_ral_tpu.fa.jfa import JfaModel, JfaStats
-    from lia_ral_tpu.fa.stats import BwStats
+    from lia_ral.fa.jfa import JfaModel, JfaStats
+    from lia_ral.fa.stats import BwStats
     rngj = np.random.default_rng(11)
     k, d, h, spk, rv = 6, 4, 12, 4, 2
     gw = rngj.random(k) + 0.5
@@ -148,7 +148,7 @@ def jfa_problem():
 
 
 def plda_problem():
-    from lia_ral_tpu.backend.plda import PldaModel
+    from lia_ral.backend.plda import PldaModel
     rngp = np.random.default_rng(7)
     vecs = rngp.standard_normal((16, 10)).astype(np.float32)
     labels = [f"s{i % 4}" for i in range(16)]

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.api import RemoteSpkDetClient, SimpleSpkDetSystem, SpkDetServer
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.gmm import GmmDiag, TrainCfg, mixture_init, train_model
+from lia_ral.api import RemoteSpkDetClient, SimpleSpkDetSystem, SpkDetServer
+from lia_ral.config import Config
+from lia_ral.gmm import GmmDiag, TrainCfg, mixture_init, train_model
 
 
 @pytest.fixture(scope="module")

@@ -4,13 +4,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.backend import (
+from lia_ral.backend import (
     DevSet, PldaModel, apply_efr, compute_cov_matrices, compute_lda,
     compute_mahalanobis, compute_wccn, cosine_scores, efr_iterations,
     length_norm, mahalanobis_scores, plda_llr, plda_train, tnorm,
     two_cov_scores, znorm, ztnorm,
 )
-from lia_ral_tpu.backend.eval import eer, min_dcf
+from lia_ral.backend.eval import eer, min_dcf
 
 
 def make_ivectors(rng, n_spk=20, sess_per_spk=6, r=16, between=1.0,
@@ -180,7 +180,7 @@ def test_norm_percentile_trim_and_median_reference_semantics():
     """Oracle for DistribNorm::computeMeanStd (ComputeNorm.cpp:121-159):
     drop size*percentH highest + size*percentL lowest after descending
     sort; meanMode 1 = median location + mean-absolute-deviation scale."""
-    from lia_ral_tpu.backend.norm import _stats
+    from lia_ral.backend.norm import _stats
     rng = np.random.default_rng(0)
     sc = rng.standard_normal((4, 20))
 
@@ -250,9 +250,9 @@ def test_compute_norm_tool_sparse_matrix(tmp_path, rng):
     """ComputeNorm tool end-to-end with a sparse impostor score file:
     NaN-fill distortion is gone; matches hand z-norm."""
     import os
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.nist import read_nist_scores
-    from lia_ral_tpu.tools import compute_norm
+    from lia_ral.config import Config
+    from lia_ral.io.nist import read_nist_scores
+    from lia_ral.tools import compute_norm
     d = str(tmp_path)
     models = ["m1", "m2"]
     segs = ["s1", "s2", "s3"]
@@ -290,10 +290,10 @@ def test_efr_rank_deficient_dev_preserves_separation(rng):
     floored at the mean eigenvalue instead of being amplified by 1/sqrt(eps)
     (observed: cosine EER 0 -> 0.5 before the guard)."""
     import jax.numpy as jnp
-    from lia_ral_tpu.backend.eval import eer
-    from lia_ral_tpu.backend.ivnorm import (DevSet, apply_efr,
+    from lia_ral.backend.eval import eer
+    from lia_ral.backend.ivnorm import (DevSet, apply_efr,
                                             efr_iterations)
-    from lia_ral_tpu.backend.scoring import cosine_scores
+    from lia_ral.backend.scoring import cosine_scores
 
     r, n_spk = 48, 8                       # 24 dev vectors << 48 dims
     spk_dir = rng.standard_normal((n_spk, r)) * 2.0
@@ -319,7 +319,7 @@ def test_eer_negative_control(rng):
     """EER sanity: identical target/impostor distributions score ~0.5
     (chance), separated ones score the analytic overlap — guards the
     milestone EER records against an eval-code artifact."""
-    from lia_ral_tpu.backend.eval import eer, min_dcf
+    from lia_ral.backend.eval import eer, min_dcf
     same_t = rng.standard_normal(4000)
     same_i = rng.standard_normal(4000)
     e_chance = eer(same_t, same_i)
@@ -334,7 +334,7 @@ def test_eer_negative_control(rng):
 
 def test_der_metric():
     """DER: optimal mapping, miss/fa/confusion accounting, collar."""
-    from lia_ral_tpu.backend.eval import der
+    from lia_ral.backend.eval import der
     ref = np.asarray([0, 0, 0, 1, 1, 1, -1, -1])
     # permuted labels are error-free under optimal mapping
     assert der(ref, np.asarray([5, 5, 5, 2, 2, 2, -1, -1])) == 0.0

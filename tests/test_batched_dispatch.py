@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lia_ral_tpu.frontend.normfeat import (cmvn_global, cmvn_global_batch,
+from lia_ral.frontend.normfeat import (cmvn_global, cmvn_global_batch,
                                            cmvn_window, cmvn_window_batch,
                                            feature_warping,
                                            feature_warping_batch)
-from lia_ral_tpu.gmm.em import TrainCfg, mixture_init, train_model
-from lia_ral_tpu.gmm.scoring import compute_test_llr, stack_gmms
-from lia_ral_tpu.tools.compute_test import _pad_clients, _pad_frames
-from lia_ral_tpu.tools.norm_feat import _warp_prepad
+from lia_ral.gmm.em import TrainCfg, mixture_init, train_model
+from lia_ral.gmm.scoring import compute_test_llr, stack_gmms
+from lia_ral.tools.compute_test import _pad_clients, _pad_frames
+from lia_ral.tools.norm_feat import _warp_prepad
 
 
 @pytest.fixture(scope="module")
@@ -106,9 +106,9 @@ def test_padded_trial_scoring_is_exact(rng):
 
 def test_norm_feat_tool_batched_outputs(tmp_path, rng):
     """The NormFeat CLI over ragged files reproduces per-file kernels."""
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.tools import norm_feat
+    from lia_ral.config import Config
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.tools import norm_feat
 
     names = ["fa", "fb", "fc"]
     entries = _ragged(rng, [140, 700, 355], d=5)
@@ -139,7 +139,7 @@ def test_compute_test_llr_batch_matches_per_line(rng):
     reuse for pad rows) reproduces per-line compute_test_llr exactly —
     pins the ComputeTest flush-loop invariant."""
     import jax
-    from lia_ral_tpu.gmm.scoring import compute_test_llr_batch
+    from lia_ral.gmm.scoring import compute_test_llr_batch
     d = 6
     xbase = rng.standard_normal((6000, d)).astype(np.float32)
     key = jax.random.key(1)

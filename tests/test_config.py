@@ -2,7 +2,7 @@ import os
 
 import pytest
 
-from lia_ral_tpu.config import Config, ConfigChecker, ConfigError
+from lia_ral.config import Config, ConfigChecker, ConfigError
 from tests.conftest import REFERENCE, requires_reference
 
 
@@ -45,10 +45,10 @@ def test_reads_reference_config():
 
 
 def test_umbrella_cli_lists_and_dispatches(tmp_path, capsys):
-    """python -m lia_ral_tpu maps reference binary names onto the tools."""
+    """python -m lia_ral maps reference binary names onto the tools."""
     import numpy as np
-    from lia_ral_tpu.__main__ import TOOLS, main
-    from lia_ral_tpu.io.features import write_feature_file
+    from lia_ral.__main__ import TOOLS, main
+    from lia_ral.io.features import write_feature_file
     assert main([]) == 0
     out = capsys.readouterr().out
     for name in ("TrainWorld", "EigenVoice", "GmmTokenizer"):

@@ -18,11 +18,11 @@ EXAMPLE = os.path.join(os.path.dirname(__file__), "..", "examples",
 
 
 def test_example_cfgs_run_end_to_end(tmp_path, rng, monkeypatch):
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.io.nist import read_nist_scores
-    from lia_ral_tpu.tools import (iv_extractor, iv_test, norm_feat,
+    from lia_ral.config import Config
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.io.nist import read_nist_scores
+    from lia_ral.tools import (iv_extractor, iv_test, norm_feat,
                                    total_variability, train_world)
 
     for sub in ("data", "lists", "models", "vectors"):

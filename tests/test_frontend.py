@@ -2,7 +2,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from lia_ral_tpu.frontend import (
+from lia_ral.frontend import (
     EnergyDetectorCfg, MfccCfg, add_deltas, cmvn_global, cmvn_segmental,
     cmvn_window, energy_detector, feature_warping, mfcc,
     shifted_delta_cepstra,

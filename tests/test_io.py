@@ -3,14 +3,14 @@ import os
 import numpy as np
 import pytest
 
-from lia_ral_tpu.io import (
+from lia_ral.io import (
     FeatureServer, Segment, apply_mask, frame_mask_to_segments, parse_mask,
     read_feature_file, read_gmm_file, read_label_file, read_matrix_file,
     read_ndx, read_xlist, segments_to_frame_mask, write_feature_file,
     write_gmm_file, write_label_file, write_matrix_file,
 )
-from lia_ral_tpu.io.features import spro_total_dim
-from lia_ral_tpu.io.nist import ScoreLine, read_nist_scores, write_nist_scores
+from lia_ral.io.features import spro_total_dim
+from lia_ral.io.nist import ScoreLine, read_nist_scores, write_nist_scores
 from tests.conftest import REFERENCE, requires_reference
 
 REF_PRM = os.path.join(REFERENCE, "LIA_SpkDet/TrainWorld/test/test1.prm")
@@ -182,7 +182,7 @@ def test_read_reference_scores():
 
 
 def test_reference_result_line_formats():
-    from lia_ral_tpu.io.nist import (format_etf_line, format_liaral_line,
+    from lia_ral.io.nist import (format_etf_line, format_liaral_line,
                                      format_mdtm_line, format_nist04_line)
     assert format_liaral_line("F", "c1", "A", "t1", "0", "20", -0.02) == \
         "F c1 A t1 0 20 -0.02"
@@ -196,7 +196,7 @@ def test_reference_result_line_formats():
 
 def test_svmlight_vector_roundtrip(tmp_path):
     import numpy as np
-    from lia_ral_tpu.io.nist import (read_svmlight_vector,
+    from lia_ral.io.nist import (read_svmlight_vector,
                                      write_svmlight_vector)
     v = np.array([0.5, -1.25, 3.0])
     p = str(tmp_path / "vec.svml")
@@ -208,7 +208,7 @@ def test_svmlight_vector_roundtrip(tmp_path):
 
 def test_fileinfo_binary_roundtrip(tmp_path):
     import numpy as np
-    from lia_ral_tpu.fa.topgauss import read_fileinfo, write_fileinfo
+    from lia_ral.fa.topgauss import read_fileinfo, write_fileinfo
     rng = np.random.default_rng(0)
     idx = rng.integers(0, 512, size=(7, 10))
     lk = rng.standard_normal(7)
@@ -228,7 +228,7 @@ def test_fileinfo_binary_roundtrip(tmp_path):
 
 def test_topgauss_reference_binary_roundtrip(tmp_path):
     import numpy as np
-    from lia_ral_tpu.fa.topgauss import TopGauss
+    from lia_ral.fa.topgauss import TopGauss
     rng = np.random.default_rng(1)
     tg = TopGauss(
         indices=rng.integers(0, 64, size=(5, 3)).astype(np.int32),

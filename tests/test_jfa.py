@@ -4,11 +4,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.fa.jfa import (JfaModel, JfaStats, estimate_x, estimate_y,
+from lia_ral.fa.jfa import (JfaModel, JfaStats, estimate_x, estimate_y,
                                 estimate_z_map, jfa_dot_product_scores,
                                 jfa_train, jfa_u_iteration, jfa_v_iteration)
-from lia_ral_tpu.fa.stats import BwStats, bw_stats_batch
-from lia_ral_tpu.gmm import GmmDiag
+from lia_ral.fa.stats import BwStats, bw_stats_batch
+from lia_ral.gmm import GmmDiag
 
 
 def random_gmm(rng, k, d):
@@ -148,9 +148,9 @@ def test_dot_product_scoring_discriminates(rng):
 def test_jfa_verify_em_llk_improves(rng):
     """verifyEMLK parity (AccumulateJFAStat.cpp:4803-4860): evidence LLK of
     sessions under synthesised m+Vy+Ux+Dz models rises over JFA training."""
-    from lia_ral_tpu.fa.jfa import jfa_verify_em_llk, jfa_train, JfaModel
-    from lia_ral_tpu.fa.jfa import JfaStats
-    from lia_ral_tpu.fa.stats import bw_stats_batch
+    from lia_ral.fa.jfa import jfa_verify_em_llk, jfa_train, JfaModel
+    from lia_ral.fa.jfa import JfaStats
+    from lia_ral.fa.stats import bw_stats_batch
     k, d, rv, ru = 4, 3, 2, 2
     n_spk, sess_per, frames = 6, 3, 250
     gmm = random_gmm(rng, k, d)
@@ -188,7 +188,7 @@ def test_orthonormalize_v_gram_schmidt(rng):
     """QR-based orthonormalize_v == reference Gram-Schmidt semantics
     (AccumulateJFAStat.cpp:4700): orthonormal rows, same leading span,
     positive projection of each original row on its own image."""
-    from lia_ral_tpu.fa.jfa import orthonormalize_v
+    from lia_ral.fa.jfa import orthonormalize_v
     gmm = random_gmm(rng, 8, 5)
     model = JfaModel.init(jax.random.key(4), 3, 2, gmm, scale=1.0)
     om = orthonormalize_v(model)
@@ -203,7 +203,7 @@ def test_orthonormalize_v_gram_schmidt(rng):
 
 
 def test_store_restore_and_npz_accs(rng, tmp_path):
-    from lia_ral_tpu.fa.jfa import (load_accs_npz, restore_accs,
+    from lia_ral.fa.jfa import (load_accs_npz, restore_accs,
                                     save_accs_npz, store_accs)
     gmm, stats, *_ = synth_jfa_data(rng, n_spk=3, sess_per_spk=2)
     snap = store_accs(stats)
@@ -223,7 +223,7 @@ def test_joint_yx_enrollment_matches_separate(rng):
     """Joint (y,x) over [V;U] (TrainTarget.cpp:529 estimateYX) agrees
     with the separate y estimate when U ≈ 0, and discriminates speakers
     when channels are live."""
-    from lia_ral_tpu.fa.jfa import enroll_targets_joint, estimate_yx_joint
+    from lia_ral.fa.jfa import enroll_targets_joint, estimate_yx_joint
     gmm, stats, v_true, u_true, y_true, _ = synth_jfa_data(
         rng, u_scale=0.0)
     model, y_sep, x, z = jfa_train(jax.random.key(5), stats, gmm,
@@ -246,11 +246,11 @@ def test_joint_yx_enrollment_matches_separate(rng):
 def test_train_target_jfa_tool(rng, tmp_path):
     """channelCompensation JFA end-to-end through the TrainTarget CLI:
     client model = m + V·y + D·z, supervector + y/x/z side files."""
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.io.matrix import read_matrix_file, write_matrix_file
-    from lia_ral_tpu.tools import train_target
+    from lia_ral.config import Config
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.io.matrix import read_matrix_file, write_matrix_file
+    from lia_ral.tools import train_target
 
     k, d, rv, ru = 8, 5, 2, 2
     gmm = random_gmm(rng, k, d)

@@ -7,11 +7,11 @@ import os
 import numpy as np
 import pytest
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.io.features import write_feature_file
-from lia_ral_tpu.io.lists import write_xlist
-from lia_ral_tpu.io.matrix import read_matrix_file
-from lia_ral_tpu.tools import jfa_tools, train_world
+from lia_ral.config import Config
+from lia_ral.io.features import write_feature_file
+from lia_ral.io.lists import write_xlist
+from lia_ral.io.matrix import read_matrix_file
+from lia_ral.tools import jfa_tools, train_world
 
 
 def test_jfa_tool_pipeline(tmp_path, rng):

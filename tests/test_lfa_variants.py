@@ -8,14 +8,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.fa.jfa import JfaStats
-from lia_ral_tpu.fa.lfa import (compensate_features, compensate_model,
+from lia_ral.config import Config
+from lia_ral.fa.jfa import JfaStats
+from lia_ral.fa.lfa import (compensate_features, compensate_model,
                                 estimate_channel, lfa_model, lfa_train)
-from lia_ral_tpu.fa.stats import bw_stats_batch
-from lia_ral_tpu.fa.topgauss import TopGauss, compute_topgauss, topgauss_llk
-from lia_ral_tpu.gmm import GmmDiag
-from lia_ral_tpu.gmm.kernels import frame_llk
+from lia_ral.fa.stats import bw_stats_batch
+from lia_ral.fa.topgauss import TopGauss, compute_topgauss, topgauss_llk
+from lia_ral.gmm import GmmDiag
+from lia_ral.gmm.kernels import frame_llk
 
 
 def random_gmm(rng, k=8, d=5):
@@ -83,9 +83,9 @@ def test_lfa_channel_compensation(rng):
 
 @pytest.fixture()
 def trial_setup(tmp_path, rng):
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.tools import train_target, train_world
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.tools import train_target, train_world
     d = str(tmp_path)
     dim, k = 6, 8
     centers = rng.standard_normal((k, dim)) * 2
@@ -134,7 +134,7 @@ def trial_setup(tmp_path, rng):
 
 
 def _run_mode(d, base, mode, extra=None):
-    from lia_ral_tpu.tools import compute_test
+    from lia_ral.tools import compute_test
     cfg = Config(base)
     cfg["computeTestMode"] = mode
     cfg["outputFilename"] = os.path.join(d, f"scores_{mode}.nist")
@@ -151,7 +151,7 @@ def test_dot_product_mode(trial_setup):
 
 
 def test_nap_mode(trial_setup, rng):
-    from lia_ral_tpu.io.matrix import write_matrix_file
+    from lia_ral.io.matrix import write_matrix_file
     d, base = trial_setup
     u = np.linalg.qr(rng.standard_normal((48, 2)))[0].T
     write_matrix_file(os.path.join(d, "nap.matx"), u)
@@ -178,7 +178,7 @@ def test_histo_mode(trial_setup):
 
 
 def test_lfa_mode(trial_setup, rng):
-    from lia_ral_tpu.io.matrix import write_matrix_file
+    from lia_ral.io.matrix import write_matrix_file
     d, base = trial_setup
     # a small random channel matrix (rank 2 over K*D=48)
     u = rng.standard_normal((2, 48)) * 0.01

@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.frontend.normfeat import feature_mapping
-from lia_ral_tpu.gmm import GmmDiag
-from lia_ral_tpu.utils.logging import configure_from, timed, verbose_level
+from lia_ral.config import Config
+from lia_ral.frontend.normfeat import feature_mapping
+from lia_ral.gmm import GmmDiag
+from lia_ral.utils.logging import configure_from, timed, verbose_level
 
 
 def test_feature_mapping(rng):
@@ -28,7 +28,7 @@ def test_feature_mapping(rng):
 
 def test_logging_config():
     configure_from(Config({"verbose": True, "verboseLevel": 2}))
-    from lia_ral_tpu.utils import logging as L
+    from lia_ral.utils import logging as L
     assert L.verbose and L.verbose_level == 2
     with timed("noop"):
         pass
@@ -37,9 +37,9 @@ def test_logging_config():
 
 
 def test_norm_feat_featmap_mode(tmp_path, rng):
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.io.gmm_io import write_gmm_file
-    from lia_ral_tpu.tools import norm_feat
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.io.gmm_io import write_gmm_file
+    from lia_ral.tools import norm_feat
     d = str(tmp_path)
     data = (rng.standard_normal((100, 4)) + 3).astype(np.float32)
     write_feature_file(os.path.join(d, "u.prm"), data, fmt="SPRO4")

@@ -56,7 +56,7 @@ def test_two_process_stats_equal_single_process(tmp_path):
 
     # global psum-merged stats == single-process reference
     from tests._multihost_worker import corpus
-    from lia_ral_tpu.gmm.kernels import em_stats
+    from lia_ral.gmm.kernels import em_stats
     x, w, gmm = corpus()
     ref = em_stats(x, w, gmm)
     got = np.load(os.path.join(str(tmp_path), "stats.npz"))
@@ -72,8 +72,8 @@ def test_two_process_stats_equal_single_process(tmp_path):
 
     # cross-host PLDA EM == single-process serial iteration
     from tests._multihost_worker import plda_problem
-    from lia_ral_tpu.backend.ivnorm import DevSet
-    from lia_ral_tpu.backend.plda import plda_em_iteration
+    from lia_ral.backend.ivnorm import DevSet
+    from lia_ral.backend.plda import plda_em_iteration
     vecs, labels, model = plda_problem()
     ref_p = plda_em_iteration(model, DevSet.from_labels(vecs, labels))
     got_p = np.load(os.path.join(str(tmp_path), "plda.npz"))
@@ -84,7 +84,7 @@ def test_two_process_stats_equal_single_process(tmp_path):
 
     # cross-host TV E-step == single-process serial E-step
     from tests._multihost_worker import tv_problem
-    from lia_ral_tpu.fa.tv import tv_e_step
+    from lia_ral.fa.tv import tv_e_step
     stats_tv, tv_model = tv_problem()
     _, ref_tv = tv_e_step(stats_tv, tv_model, chunk=4)
     got_tv = np.load(os.path.join(str(tmp_path), "tv.npz"))
@@ -97,7 +97,7 @@ def test_two_process_stats_equal_single_process(tmp_path):
     # (the DCN form of the threaded estimateVEVT merge,
     # AccumulateJFAStat.cpp:1573)
     from tests._multihost_worker import jfa_problem
-    from lia_ral_tpu.fa.jfa import jfa_v_iteration
+    from lia_ral.fa.jfa import jfa_v_iteration
     jstats, jmodel, jx, jz = jfa_problem()
     ref_m, ref_y = jfa_v_iteration(jstats, jmodel, jx, jz)
     got_j = np.load(os.path.join(str(tmp_path), "jfa.npz"))
@@ -107,7 +107,7 @@ def test_two_process_stats_equal_single_process(tmp_path):
                                rtol=2e-4, atol=2e-5)
 
     # cross-host i-vector extraction == single-process estimate_w
-    from lia_ral_tpu.fa.tv import estimate_w
+    from lia_ral.fa.tv import estimate_w
     ref_w = estimate_w(stats_tv, tv_model, chunk=2, pcg_iters=12)
     got_w = np.load(os.path.join(str(tmp_path), "w_iv.npz"))
     np.testing.assert_allclose(got_w["w"], np.asarray(ref_w),

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from lia_ral_tpu.io.features import read_feature_file, write_feature_file
-from lia_ral_tpu.io.native import (apply_mask_native, available,
+from lia_ral.io.features import read_feature_file, write_feature_file
+from lia_ral.io.native import (apply_mask_native, available,
                                    read_features_native)
 from tests.conftest import REFERENCE, requires_reference
 
@@ -59,10 +59,10 @@ def test_native_batch_loader_matches_sequential(tmp_path, rng):
     None for unreadable entries and featureServerMask applied through
     load_files_batch."""
     import numpy as np
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.features import read_feature_file, write_feature_file
-    from lia_ral_tpu.io.native import read_features_batch_native
-    from lia_ral_tpu.tools.common import load_files_batch
+    from lia_ral.config import Config
+    from lia_ral.io.features import read_feature_file, write_feature_file
+    from lia_ral.io.native import read_features_batch_native
+    from lia_ral.tools.common import load_files_batch
 
     names, mats = [], []
     for i, n in enumerate([37, 512, 5, 129]):
@@ -101,8 +101,8 @@ def test_batch_loader_reads_reference_fixtures():
     fixtures identically to the per-file reader."""
     import glob
     import numpy as np
-    from lia_ral_tpu.io.features import read_feature_file
-    from lia_ral_tpu.io.native import read_features_batch_native
+    from lia_ral.io.features import read_feature_file
+    from lia_ral.io.native import read_features_batch_native
     paths = sorted(glob.glob(
         REFERENCE + "/LIA_SpkDet/TrainWorld/test/*.prm"))[:4]
     assert paths

@@ -3,8 +3,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.gmm import GmmDiag, em_stats_chunked, train_model, TrainCfg, mixture_init
-from lia_ral_tpu.parallel import make_mesh, sharded_em_stats, sharded_stats_fn
+from lia_ral.gmm import GmmDiag, em_stats_chunked, train_model, TrainCfg, mixture_init
+from lia_ral.parallel import make_mesh, sharded_em_stats, sharded_stats_fn
 
 
 def random_gmm(rng, k, d):
@@ -67,8 +67,8 @@ def test_train_model_with_sharded_stats(rng):
 def test_2d_sharded_equals_serial(rng):
     """data x model 2-D sharding == serial stats (components sharded,
     softmax normalisation via cross-axis collectives)."""
-    from lia_ral_tpu.parallel import make_mesh, sharded_em_stats_2d
-    from lia_ral_tpu.gmm import em_stats_chunked
+    from lia_ral.parallel import make_mesh, sharded_em_stats_2d
+    from lia_ral.gmm import em_stats_chunked
     k, d, n = 8, 5, 1000
     gmm = random_gmm(rng, k, d)
     x = jnp.asarray(rng.standard_normal((n, d)), jnp.float32)
@@ -84,9 +84,9 @@ def test_2d_sharded_equals_serial(rng):
 def test_sharded_tv_e_step_equals_serial(rng):
     """Speaker-sharded TV E-step psum == serial (the reference's threaded
     estimateAandC under mutexes, AccumulateTVStat.cpp:1944)."""
-    from lia_ral_tpu.fa.stats import BwStats
-    from lia_ral_tpu.fa.tv import TvModel, init_t, tv_e_step
-    from lia_ral_tpu.parallel.sharding import sharded_tv_e_step
+    from lia_ral.fa.stats import BwStats
+    from lia_ral.fa.tv import TvModel, init_t, tv_e_step
+    from lia_ral.parallel.sharding import sharded_tv_e_step
 
     k, d, r, s = 4, 3, 2, 16
     gmm = random_gmm(rng, k, d)
@@ -110,12 +110,12 @@ def test_sharded_jfa_iterations_equal_serial(rng):
     import jax
     import jax.numpy as jnp
     from tests.test_jfa import synth_jfa_data
-    from lia_ral_tpu.fa.jfa import jfa_u_iteration, jfa_v_iteration
-    from lia_ral_tpu.parallel import make_mesh
-    from lia_ral_tpu.parallel.sharding import (sharded_jfa_u_iteration,
+    from lia_ral.fa.jfa import jfa_u_iteration, jfa_v_iteration
+    from lia_ral.parallel import make_mesh
+    from lia_ral.parallel.sharding import (sharded_jfa_u_iteration,
                                                sharded_jfa_v_iteration)
     gmm, stats, *_ = synth_jfa_data(rng, n_spk=11, sess_per_spk=3)
-    from lia_ral_tpu.fa.jfa import JfaModel
+    from lia_ral.fa.jfa import JfaModel
     model = JfaModel.init(jax.random.key(0), 2, 2, gmm, scale=0.1)
     s = stats.spk.n.shape[0]
     h = stats.sess.n.shape[0]
@@ -142,11 +142,11 @@ def test_sharded_plda_em_and_scoring_equal_serial(rng):
     threaded getExpectedValues / scoring merge, PldaTools.cpp:2647/4061)."""
     import jax
     import jax.numpy as jnp
-    from lia_ral_tpu.backend.ivnorm import DevSet
-    from lia_ral_tpu.backend.plda import (PldaModel, plda_em_iteration,
+    from lia_ral.backend.ivnorm import DevSet
+    from lia_ral.backend.plda import (PldaModel, plda_em_iteration,
                                           plda_llr, plda_train)
-    from lia_ral_tpu.parallel import make_mesh
-    from lia_ral_tpu.parallel.sharding import (sharded_plda_em_iteration,
+    from lia_ral.parallel import make_mesh
+    from lia_ral.parallel.sharding import (sharded_plda_em_iteration,
                                                sharded_plda_llr)
     r, rf, rg, n_spk, sess = 20, 6, 3, 13, 3
     h = rng.standard_normal((n_spk, rf))
@@ -182,12 +182,12 @@ def test_tools_numthread_sharded_equal_serial(rng, tmp_path):
     """numThread reaches TV (and PLDA) through the tools: an 8-way mesh
     run produces the same T matrix as single-device (SURVEY §2.6)."""
     import jax.numpy as jnp
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.gmm import GmmDiag
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.io.matrix import read_matrix_file
-    from lia_ral_tpu.tools import total_variability
+    from lia_ral.config import Config
+    from lia_ral.gmm import GmmDiag
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.io.matrix import read_matrix_file
+    from lia_ral.tools import total_variability
 
     k, d = 8, 5
     w = rng.random(k) + 0.5
@@ -232,10 +232,10 @@ def test_sharded_estimate_w_equals_serial(rng):
     both solvers; the PCG preconditioner basis is computed from the
     replicated global stats so every iterate matches the serial path."""
     import jax
-    from lia_ral_tpu.fa.stats import BwStats
-    from lia_ral_tpu.fa.tv import estimate_w, init_t
-    from lia_ral_tpu.parallel import make_mesh
-    from lia_ral_tpu.parallel.sharding import sharded_estimate_w
+    from lia_ral.fa.stats import BwStats
+    from lia_ral.fa.tv import estimate_w, init_t
+    from lia_ral.parallel import make_mesh
+    from lia_ral.parallel.sharding import sharded_estimate_w
 
     k, d, r, s = 12, 5, 6, 19          # 19 pads to 24 over 8 shards
     gmm = random_gmm(rng, k, d)
@@ -258,10 +258,10 @@ def test_sharded_tv_e_step_2d_equals_serial(rng):
     only the (B,R,R) L build and (B,R) aux cross the component axis,
     psum-merged, so the replicated solve matches the serial path."""
     import jax
-    from lia_ral_tpu.fa.stats import BwStats
-    from lia_ral_tpu.fa.tv import init_t, tv_e_step, tv_m_step
-    from lia_ral_tpu.parallel import make_mesh
-    from lia_ral_tpu.parallel.sharding import sharded_tv_e_step_2d
+    from lia_ral.fa.stats import BwStats
+    from lia_ral.fa.tv import init_t, tv_e_step, tv_m_step
+    from lia_ral.parallel import make_mesh
+    from lia_ral.parallel.sharding import sharded_tv_e_step_2d
     from tests.test_gmm_kernels import random_gmm
 
     k, d, r, s = 8, 3, 4, 11          # k divisible by n_model=2

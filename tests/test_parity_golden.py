@@ -3,7 +3,7 @@
 The reference tests by golden-file integration runs (SURVEY.md §4).  This
 suite runs OUR tools on the reference's own fixtures and compares the
 NUMBERS, not just structure.  Caveat, established forensically (see
-PARITY.md and lia_ral_tpu/io/repair.py): every binary fixture in the
+PARITY.md and lia_ral/io/repair.py): every binary fixture in the
 reference tree went through a CRLF line-ending normalizer at some point —
 0x0D bytes deleted when followed by 0x0A, flipped to 0x0A otherwise.
 ``repair_gmm_raw`` recovers the deletions exactly (alignment checkpoints);
@@ -17,10 +17,10 @@ import shutil
 import numpy as np
 import pytest
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.io.gmm_io import _read_gmm_raw, write_gmm_file
-from lia_ral_tpu.io.nist import read_nist_scores
-from lia_ral_tpu.io.repair import gmm_flip_report, repair_gmm_raw
+from lia_ral.config import Config
+from lia_ral.io.gmm_io import _read_gmm_raw, write_gmm_file
+from lia_ral.io.nist import read_nist_scores
+from lia_ral.io.repair import gmm_flip_report, repair_gmm_raw
 from tests.conftest import REFERENCE, requires_reference
 
 CT = os.path.join(REFERENCE, "LIA_SpkDet/ComputeTest/test")
@@ -78,7 +78,7 @@ def test_compute_test_golden_llrs(tmp_path):
     (golden 5.06601 / 4.26793) reproduce to 0.014 / 0.007 — fully
     explained by the unrecoverable 0x0D→0x0A flips in the stored models
     (≈2 flipped bytes per component)."""
-    from lia_ral_tpu.tools import compute_test
+    from lia_ral.tools import compute_test
 
     d = _repaired_compute_test_dir(tmp_path)
     cfg = Config.load(os.path.join(CT, "ComputeTest.cfg"))
@@ -128,7 +128,7 @@ def test_gmm_tokenizer_symbols_golden(tmp_path):
     """Winning-component symbol stream vs test1.sym.ref: EXACT match
     (9/9 symbols).  The golden is the run-length-collapsed stream — 37
     selected frames → 9 runs; the argmax is robust to the flip noise."""
-    from lia_ral_tpu.tools.utils_tools import gmm_tokenizer_main
+    from lia_ral.tools.utils_tools import gmm_tokenizer_main
 
     out = gmm_tokenizer_main(_tok_cfg(tmp_path))
     with open(os.path.join(TOK, "test1.sym.ref")) as f:
@@ -145,8 +145,8 @@ def test_gmm_tokenizer_confusion_golden(tmp_path):
     (0/16384 cells differ).  The golden's total count is 740 = 37
     frames × 20, i.e. it was produced with topDistribsCount 20 (the
     checked-in cfg says 6 — the golden predates it)."""
-    from lia_ral_tpu.io.matrix import read_matrix_file
-    from lia_ral_tpu.tools.utils_tools import gmm_tokenizer_main
+    from lia_ral.io.matrix import read_matrix_file
+    from lia_ral.tools.utils_tools import gmm_tokenizer_main
 
     cfg = _tok_cfg(tmp_path)
     cfg["confusionMatrix"] = "true"
@@ -169,7 +169,7 @@ def test_scoring_nist_golden(tmp_path):
     """Scoring --mode NIST on score.nist vs score.final.nist: exact
     field-level parity (reference cmdline in test1.sh: threshold 2,
     segTypeTest/trainTypeTest 1side, adaptationMode n)."""
-    from lia_ral_tpu.tools.utils_tools import scoring_main
+    from lia_ral.tools.utils_tools import scoring_main
 
     out = os.path.join(str(tmp_path), "score.final.nist")
     cfg = Config({
@@ -195,7 +195,7 @@ def test_fusion_identity_golden(tmp_path):
     """FusionScore with the reference's fixture (score.nist fused with
     itself at weights 0.5/0.5) must reproduce the input scores exactly
     (test1.sh: 'Check if fusion.nist and score.nist are the same')."""
-    from lia_ral_tpu.tools.utils_tools import fusion_main
+    from lia_ral.tools.utils_tools import fusion_main
 
     d = str(tmp_path)
     shutil.copy(os.path.join(FUS, "score.nist"), d)
@@ -235,8 +235,8 @@ def test_energy_detector_reference_math_exact(tmp_path):
     the selectFrames tail quirk: an open run at input-segment end extends
     one frame past the label (…0.26 from a 0-0.25 label), which this
     output reproduces (0.17 → 0.26)."""
-    from lia_ral_tpu.io import read_label_file
-    from lia_ral_tpu.tools import energy_detector
+    from lia_ral.io import read_label_file
+    from lia_ral.tools import energy_detector
 
     ED = os.path.join(REFERENCE, "LIA_SpkDet/EnergyDetector/test")
     d = str(tmp_path)
@@ -275,8 +275,8 @@ def test_sequence_extractor_fixture(tmp_path):
     count 50 (total 200); with nbOutputSymb=4 the equal-probability
     carve MUST give each output symbol exactly count 200/4=50 — a
     hand-derivable invariant, not just a snapshot."""
-    from lia_ral_tpu.tools.utils_tools import sequence_extract_main
-    from lia_ral_tpu.utils.seqtree import CommonPartTree, SequenceDecoder
+    from lia_ral.tools.utils_tools import sequence_extract_main
+    from lia_ral.utils.seqtree import CommonPartTree, SequenceDecoder
 
     tree = CommonPartTree.from_ngram_files(
         os.path.join(SEQ, "ngram"), ".dta", 3, 10000)
@@ -309,8 +309,8 @@ def test_polyexp_fixture(tmp_path):
     """Run PolyExpand.cfg verbatim on test1.prm (SPRO3 format,
     featureServerMask 0-15,17-32 → 32 dims) through both test.sh passes
     (--computeR then --normalize, PolyExpand.cpp:164-211)."""
-    from lia_ral_tpu.tools.utils_tools import poly_exp_main
-    from lia_ral_tpu.utils.polyexp import poly_expansion_size
+    from lia_ral.tools.utils_tools import poly_exp_main
+    from lia_ral.utils.polyexp import poly_expansion_size
 
     base = Config.load(os.path.join(POLY, "PolyExpand.cfg"))
     for k, v in {
@@ -349,8 +349,8 @@ def test_polyexp_fixture(tmp_path):
 def test_label_ngram_fixture(tmp_path):
     """Process the real test.sym (30994 symbols) with
     codebook.16.3gram.des per config.cfg (LabelNGram.cpp:160-268)."""
-    from lia_ral_tpu.tools.utils_tools import label_ngram_main
-    from lia_ral_tpu.utils import read_ngram_codebook
+    from lia_ral.tools.utils_tools import label_ngram_main
+    from lia_ral.utils import read_ngram_codebook
 
     codebook = read_ngram_codebook(
         os.path.join(LNG, "codebook.16.3gram.des"), 3, 16)
@@ -378,7 +378,7 @@ def test_label_ngram_fixture(tmp_path):
 
     # a window covering an actual occurrence of the top codebook trigram
     # must emit its 1-based codebook index as the label
-    from lia_ral_tpu.io.lists import read_simple_list
+    from lia_ral.io.lists import read_simple_list
     syms = [-1 if s == "oov" else int(s) for s in
             read_simple_list(os.path.join(LNG, "test.sym"))]
     runs, pos = [], []

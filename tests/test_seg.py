@@ -4,12 +4,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.gmm import GmmDiag, TrainCfg, mixture_init, train_model
-from lia_ral_tpu.seg import (DiarHmm, acoustic_segmentation, bic_crit,
+from lia_ral.gmm import GmmDiag, TrainCfg, mixture_init, train_model
+from lia_ral.seg import (DiarHmm, acoustic_segmentation, bic_crit,
                              clr_crit, delta_bic_crit, e_hmm_segmentation,
                              gllr_crit, resegmentation, turn_detection,
                              viterbi_decode)
-from lia_ral_tpu.seg.hmm import compute_transitions, path_to_segments
+from lia_ral.seg.hmm import compute_transitions, path_to_segments
 
 
 def gauss_gmm(mean, var=0.3, d=4):
@@ -55,8 +55,8 @@ def test_clustering_criteria_prefer_split_for_distinct(rng):
     w1 = jnp.asarray(np.r_[np.ones(300), np.zeros(300)], jnp.float32)
     w2 = 1.0 - w1
     def fit(w):
-        from lia_ral_tpu.gmm.kernels import em_stats
-        from lia_ral_tpu.gmm.em import m_step
+        from lia_ral.gmm.kernels import em_stats
+        from lia_ral.gmm.em import m_step
         g = GmmDiag.uniform_init(1, d)
         for _ in range(3):
             g = m_step(em_stats(x, w, g))
@@ -73,8 +73,8 @@ def test_clustering_criteria_prefer_split_for_distinct(rng):
     y2 = rng.standard_normal((300, d))
     y = jnp.asarray(np.concatenate([y1, y2]), jnp.float32)
     def fity(w):
-        from lia_ral_tpu.gmm.kernels import em_stats
-        from lia_ral_tpu.gmm.em import m_step
+        from lia_ral.gmm.kernels import em_stats
+        from lia_ral.gmm.em import m_step
         g = GmmDiag.uniform_init(1, d)
         for _ in range(3):
             g = m_step(em_stats(y, w, g))
@@ -120,7 +120,7 @@ def test_e_hmm_segmentation_two_speakers(rng):
 
 
 def test_resegmentation_improves_noisy_input(rng):
-    from lia_ral_tpu.io.labels import Segment
+    from lia_ral.io.labels import Segment
     x, truth = two_speaker_signal(rng, n_turns=6, turn_len=200)
     world = _world_for(x)
     # noisy initial segmentation: boundaries off by 60 frames
@@ -165,8 +165,8 @@ def _world_for_segs(x, key=0, k=4):
 
 
 def test_segment_mean_llk_matches_direct(rng):
-    from lia_ral_tpu.gmm.kernels import frame_llk
-    from lia_ral_tpu.seg import segment_mean_llk
+    from lia_ral.gmm.kernels import frame_llk
+    from lia_ral.seg import segment_mean_llk
     x, segs = _two_cluster_scene(rng, seg_len=100)
     world = _world_for_segs(x)
     got = segment_mean_llk(x, segs, world)
@@ -176,13 +176,13 @@ def test_segment_mean_llk_matches_direct(rng):
 
 
 def test_merge_cluster_sorted():
-    from lia_ral_tpu.seg import merge_cluster
+    from lia_ral.seg import merge_cluster
     assert merge_cluster([(10, 20)], [(0, 5), (30, 40)]) == [
         (0, 5), (10, 20), (30, 40)]
 
 
 def test_clustering_criterion_by_adapt_separates(rng):
-    from lia_ral_tpu.seg import clustering_criterion_by_adapt
+    from lia_ral.seg import clustering_criterion_by_adapt
     x, segs = _two_cluster_scene(rng)
     # a broad world so MAP adaptation actually specialises the models
     world = gauss_gmm(0.0, var=10.0)
@@ -197,7 +197,7 @@ def test_clustering_criterion_by_adapt_separates(rng):
 
 
 def test_is_similar_segment_em_decision(rng):
-    from lia_ral_tpu.seg import is_similar_segment
+    from lia_ral.seg import is_similar_segment
     x, segs = _two_cluster_scene(rng)
     world = _world_for_segs(x)
     key = jax.random.key(3)
@@ -211,7 +211,7 @@ def test_is_similar_segment_em_decision(rng):
 
 
 def test_best_fitting_segment_and_cluster(rng):
-    from lia_ral_tpu.seg import best_fitting_cluster, best_fitting_segment
+    from lia_ral.seg import best_fitting_cluster, best_fitting_segment
     x, segs = _two_cluster_scene(rng)
     world = _world_for_segs(x)
     m_a = gauss_gmm(3.0)
@@ -233,7 +233,7 @@ def test_best_fitting_segment_and_cluster(rng):
 
 
 def test_intra_inter_cluster_purity(rng):
-    from lia_ral_tpu.seg import inter_cluster, intra_cluster
+    from lia_ral.seg import inter_cluster, intra_cluster
     x, segs = _two_cluster_scene(rng)
     world = _world_for_segs(x)
     m_a, m_b = gauss_gmm(3.0), gauss_gmm(-3.0)
@@ -252,7 +252,7 @@ def test_intra_inter_cluster_purity(rng):
 
 
 def test_cohort_max_likelihood(rng):
-    from lia_ral_tpu.seg import cohort_max_likelihood, segment_mean_llk
+    from lia_ral.seg import cohort_max_likelihood, segment_mean_llk
     x, segs = _two_cluster_scene(rng, seg_len=100)
     m_a, m_b = gauss_gmm(3.0), gauss_gmm(-3.0)
     v = cohort_max_likelihood(x, [m_a, m_b], segs[0], except_ind=0)
@@ -264,8 +264,8 @@ def test_mixture_init_by_split(rng):
     """Binary-split init (Tools.cpp:1057): reaches the exact component
     count (incl. non-power-of-two via unitary splits) and fits the data at
     least as well as a single Gaussian."""
-    from lia_ral_tpu.gmm.em import mixture_init_by_split, TrainCfg
-    from lia_ral_tpu.gmm.kernels import frame_llk
+    from lia_ral.gmm.em import mixture_init_by_split, TrainCfg
+    from lia_ral.gmm.kernels import frame_llk
     x, _ = two_speaker_signal(rng, n_turns=4, turn_len=300)
     xj = jnp.asarray(x)
     w = jnp.ones(xj.shape[0], jnp.float32)
@@ -280,7 +280,7 @@ def test_mixture_init_by_split(rng):
 
 
 def test_create_world_and_seg_adaptation(rng):
-    from lia_ral_tpu.seg import create_world, seg_adaptation, seg_em
+    from lia_ral.seg import create_world, seg_adaptation, seg_em
     x, truth = two_speaker_signal(rng, n_turns=4, turn_len=200)
     xj = jnp.asarray(x)
     w = jnp.ones(xj.shape[0], jnp.float32)
@@ -304,8 +304,8 @@ def test_glr_distance_curve_matches_host_loop(rng):
     (TurnDetection.cpp:54-78 math), and a 100k-frame curve runs fast."""
     import time
     import jax.numpy as jnp
-    from lia_ral_tpu.seg.clustering import glr_window_distance
-    from lia_ral_tpu.seg.diarization import glr_distance_curve
+    from lia_ral.seg.clustering import glr_window_distance
+    from lia_ral.seg.diarization import glr_distance_curve
     x = rng.standard_normal((400, 6)).astype(np.float32)
     x[200:] += 3.0
     w = 30
@@ -325,7 +325,7 @@ def test_glr_distance_curve_matches_host_loop(rng):
 
 
 def test_turn_detection_finds_change_point(rng):
-    from lia_ral_tpu.seg.diarization import turn_detection
+    from lia_ral.seg.diarization import turn_detection
     x = rng.standard_normal((600, 5)).astype(np.float32)
     x[300:] += 4.0
     turns = turn_detection(x, window=40, alpha=0.5, min_gap=20)

@@ -8,13 +8,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.gmm.em import TrainCfg, train_model, train_model_streaming
-from lia_ral_tpu.gmm.model import GmmDiag
-from lia_ral_tpu.io.features import write_feature_file
-from lia_ral_tpu.io.gmm_io import read_gmm_file, write_gmm_file
-from lia_ral_tpu.tools import train_world
-from lia_ral_tpu.tools.common import feature_chunk_loader
+from lia_ral.config import Config
+from lia_ral.gmm.em import TrainCfg, train_model, train_model_streaming
+from lia_ral.gmm.model import GmmDiag
+from lia_ral.io.features import write_feature_file
+from lia_ral.io.gmm_io import read_gmm_file, write_gmm_file
+from lia_ral.tools import train_world
+from lia_ral.tools.common import feature_chunk_loader
 
 
 def _corpus(rng, n=1200, d=6, k=5):

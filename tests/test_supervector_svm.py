@@ -3,13 +3,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from lia_ral_tpu.backend.supervector import (
+from lia_ral.backend.supervector import (
     compute_nap, fisher_weight_vector, get_supervector, kl_vector,
     model_to_sv, nap_project_vectors, project_on_subspace, sv_to_model,
     train_nap_subspace,
 )
-from lia_ral_tpu.backend.svm import SvmModel, default_c, svm_train
-from lia_ral_tpu.gmm import GmmDiag
+from lia_ral.backend.svm import SvmModel, default_c, svm_train
+from lia_ral.gmm import GmmDiag
 
 
 def random_gmm(rng, k=4, d=3):

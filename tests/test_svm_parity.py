@@ -17,7 +17,7 @@ import os
 import numpy as np
 import pytest
 
-from lia_ral_tpu.backend.svm import default_c, kernel_matrix, svm_train
+from lia_ral.backend.svm import default_c, kernel_matrix, svm_train
 
 
 def smo_reference(k, y, c_vec, tol=1e-8, max_iter=200_000):
@@ -127,11 +127,11 @@ def test_svm_cli_fixture_flow(tmp_path):
     """Drive svmTrain/svmPredict exactly as the reference fixture configs
     do (GmmSv.cfg: target NDX + background list of .vect supervectors →
     .svm models → predict NDX → score file): target scores > cohort."""
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.io.matrix import write_matrix_file
-    from lia_ral_tpu.io.nist import read_nist_scores
-    from lia_ral_tpu.tools.utils_tools import (svm_predict_main,
+    from lia_ral.config import Config
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.io.matrix import write_matrix_file
+    from lia_ral.io.nist import read_nist_scores
+    from lia_ral.tools.utils_tools import (svm_predict_main,
                                                svm_train_main)
     rng = np.random.default_rng(5)
     d = 30

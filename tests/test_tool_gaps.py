@@ -8,11 +8,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.gmm.model import GmmDiag
-from lia_ral_tpu.io.features import read_feature_file, write_feature_file
-from lia_ral_tpu.io.gmm_io import write_gmm_file
-from lia_ral_tpu.io.matrix import read_matrix_file, write_matrix_file
+from lia_ral.config import Config
+from lia_ral.gmm.model import GmmDiag
+from lia_ral.io.features import read_feature_file, write_feature_file
+from lia_ral.io.gmm_io import write_gmm_file
+from lia_ral.io.matrix import read_matrix_file, write_matrix_file
 
 
 def _mk_gmm(rng, k=8, d=4):
@@ -39,7 +39,7 @@ def test_htk_feature_roundtrip(tmp_path, rng):
 def test_model_to_sv_norm_sv(tmp_path, rng):
     """normSv multiplies by √(w·covInv) of the UBM (getMeanNorm,
     ModelToSvMain.cpp:58-68); weightSv norm = 1/√w (cpp:70-75)."""
-    from lia_ral_tpu.tools.utils_tools import model_to_sv_main
+    from lia_ral.tools.utils_tools import model_to_sv_main
 
     d = str(tmp_path)
     w, m, ci = _mk_gmm(rng)
@@ -62,7 +62,7 @@ def test_model_to_sv_norm_sv(tmp_path, rng):
 def test_cov_intra_cli(tmp_path, rng):
     """CovIntra CLI: session .vect list → NAP matrix file; the trained
     subspace captures the within-speaker (channel) direction."""
-    from lia_ral_tpu.tools.utils_tools import cov_intra_main
+    from lia_ral.tools.utils_tools import cov_intra_main
 
     d = str(tmp_path)
     dim = 16
@@ -96,8 +96,8 @@ def test_cov_intra_cli(tmp_path, rng):
 def test_train_target_nap_and_sv_output(tmp_path, rng):
     """TrainTarget optional NAP (TrainTarget.cpp:154-157) and
     outputAdaptParam supervector output (cpp:158-169)."""
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.tools import train_target
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.tools import train_target
 
     d = str(tmp_path)
     k, dim = 8, 6
@@ -141,9 +141,9 @@ def test_train_target_nap_and_sv_output(tmp_path, rng):
 def test_norm_feat_nap_mode(tmp_path, rng):
     """normFeatNAP: x −= γ(x)·(UᵀU·sv_ubm reshaped) per frame
     (NormFeat.cpp:724, featureChannelCompNAP cpp:213-229)."""
-    from lia_ral_tpu.backend.supervector import model_to_sv, project_on_subspace
-    from lia_ral_tpu.gmm.kernels import llk_and_posteriors
-    from lia_ral_tpu.tools import norm_feat
+    from lia_ral.backend.supervector import model_to_sv, project_on_subspace
+    from lia_ral.gmm.kernels import llk_and_posteriors
+    from lia_ral.tools import norm_feat
 
     d = str(tmp_path)
     k, dim = 6, 5
@@ -176,7 +176,7 @@ def test_norm_feat_nap_mode(tmp_path, rng):
 
 
 def test_compute_test_skip_existing_output(tmp_path):
-    from lia_ral_tpu.tools import compute_test
+    from lia_ral.tools import compute_test
 
     d = str(tmp_path)
     out_p = os.path.join(d, "scores.nist")
@@ -192,9 +192,9 @@ def test_compute_test_warns_and_continues_on_bad_line(tmp_path, rng, capsys):
     """A missing test segment or missing model must not abort the NDX run
     (reference per-line alize::Exception catch; TrainWorld.cpp:187-189)."""
     import jax
-    from lia_ral_tpu.gmm import TrainCfg, mixture_init, train_model
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.tools import compute_test
+    from lia_ral.gmm import TrainCfg, mixture_init, train_model
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.tools import compute_test
 
     d = str(tmp_path)
     dim, k = 6, 4

@@ -7,12 +7,12 @@ import shutil
 import numpy as np
 import pytest
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.io import read_gmm_file, read_label_file, read_nist_scores
-from lia_ral_tpu.io.features import read_feature_file, write_feature_file
-from lia_ral_tpu.io.labels import Segment, write_label_file
-from lia_ral_tpu.io.lists import write_xlist
-from lia_ral_tpu.tools import (compute_test, energy_detector, norm_feat,
+from lia_ral.config import Config
+from lia_ral.io import read_gmm_file, read_label_file, read_nist_scores
+from lia_ral.io.features import read_feature_file, write_feature_file
+from lia_ral.io.labels import Segment, write_label_file
+from lia_ral.io.lists import write_xlist
+from lia_ral.tools import (compute_test, energy_detector, norm_feat,
                                train_target, train_world)
 from tests.conftest import REFERENCE, requires_reference
 
@@ -173,9 +173,9 @@ def test_spk_adapt_tool_modes(tmp_path):
     keys WMAP/REGRESS/Oracle/TNORM)."""
     import jax
     import jax.numpy as jnp
-    from lia_ral_tpu.gmm import TrainCfg, mixture_init, train_model
-    from lia_ral_tpu.io.nist import ScoreLine, write_nist_scores
-    from lia_ral_tpu.tools import spk_adapt
+    from lia_ral.gmm import TrainCfg, mixture_init, train_model
+    from lia_ral.io.nist import ScoreLine, write_nist_scores
+    from lia_ral.tools import spk_adapt
 
     d = str(tmp_path)
     rng = np.random.default_rng(3)
@@ -275,9 +275,9 @@ def test_spk_adapt_online_znorm(tmp_path):
     approximates with a frame-count shift table, cpp:717-733)."""
     import jax
     import jax.numpy as jnp
-    from lia_ral_tpu.backend.unsupervised import online_znorm_params
-    from lia_ral_tpu.gmm import TrainCfg, mixture_init, train_model
-    from lia_ral_tpu.tools import spk_adapt
+    from lia_ral.backend.unsupervised import online_znorm_params
+    from lia_ral.gmm import TrainCfg, mixture_init, train_model
+    from lia_ral.tools import spk_adapt
 
     d = str(tmp_path)
     rng = np.random.default_rng(5)
@@ -306,7 +306,7 @@ def test_spk_adapt_online_znorm(tmp_path):
 
     # online_znorm_params itself: unadapted model → params match a
     # direct cohort scoring; adapted model → mean shifts
-    from lia_ral_tpu.io.features import read_feature_file
+    from lia_ral.io.features import read_feature_file
     zp0 = online_znorm_params(
         world, world,
         jnp.asarray(np.stack([read_feature_file(

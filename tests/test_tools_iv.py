@@ -7,12 +7,12 @@ import os
 import numpy as np
 import pytest
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.io.features import write_feature_file
-from lia_ral_tpu.io.lists import write_xlist
-from lia_ral_tpu.io.nist import read_nist_scores
-from lia_ral_tpu.backend.eval import eer
-from lia_ral_tpu.tools import (compute_norm, iv_extractor, iv_norm, iv_test,
+from lia_ral.config import Config
+from lia_ral.io.features import write_feature_file
+from lia_ral.io.lists import write_xlist
+from lia_ral.io.nist import read_nist_scores
+from lia_ral.backend.eval import eer
+from lia_ral.tools import (compute_norm, iv_extractor, iv_norm, iv_test,
                                plda_tool, total_variability, train_world)
 
 
@@ -201,7 +201,7 @@ def test_iv_test_load_matrices_and_binary_output(pipeline):
                        "outputFilename": os.path.join(d, "scores_bin")})
     assert os.path.isfile(os.path.join(d, "scores_bin_model.txt"))
     assert os.path.isfile(os.path.join(d, "scores_bin.matx"))
-    from lia_ral_tpu.io.matrix import read_matrix_file
+    from lia_ral.io.matrix import read_matrix_file
     mat = read_matrix_file(os.path.join(d, "scores_bin.matx"))
     assert mat.shape == (len(enroll), len(tests))
     assert e2 <= e1 + 0.1
@@ -220,7 +220,7 @@ def test_plda_reference_matrix_roundtrip_and_warm_start(pipeline):
     for name in ("pldaMeanVec", "pldaEigenVoiceMatrix", "pldaSigmaMatrix",
                  "pldaMinDivMean"):
         assert os.path.isfile(os.path.join(d, name + ".matx")), name
-    from lia_ral_tpu.backend.plda import PldaModel
+    from lia_ral.backend.plda import PldaModel
     back = PldaModel.load_reference(
         os.path.join(d, "pldaMeanVec.matx"),
         os.path.join(d, "pldaEigenVoiceMatrix.matx"), None,

@@ -6,14 +6,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from lia_ral_tpu.backend.unsupervised import (UnsupervisedAdapter, windowed_llr,
+from lia_ral.backend.unsupervised import (UnsupervisedAdapter, windowed_llr,
                                               wmap, wmap_gmm)
-from lia_ral_tpu.gmm import (GmmDiag, MapCfg, TrainCfg, mixture_init,
+from lia_ral.gmm import (GmmDiag, MapCfg, TrainCfg, mixture_init,
                              train_model)
-from lia_ral_tpu.gmm.em import reduce_model, train_model_streams
-from lia_ral_tpu.gmm.map_adapt import compute_mllr
-from lia_ral_tpu.gmm.kernels import em_stats
-from lia_ral_tpu.gmm.em import m_step
+from lia_ral.gmm.em import reduce_model, train_model_streams
+from lia_ral.gmm.map_adapt import compute_mllr
+from lia_ral.gmm.kernels import em_stats
+from lia_ral.gmm.em import m_step
 
 
 def test_wmap_posterior_behaviour():
@@ -115,10 +115,10 @@ def test_train_model_streams(rng):
 
 
 def test_window_llr_compute_test_mode(tmp_path, rng):
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.features import write_feature_file
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.tools import compute_test, train_target, train_world
+    from lia_ral.config import Config
+    from lia_ral.io.features import write_feature_file
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.tools import compute_test, train_target, train_world
     d = str(tmp_path)
     dim, k = 4, 8
     centers = rng.standard_normal((k, dim)) * 2
@@ -180,7 +180,7 @@ def test_window_llr_compute_test_mode(tmp_path, rng):
 # ---------------------------------------------------------------------------
 
 def test_expand_llr_logistic():
-    from lia_ral_tpu.backend.unsupervised import expand_llr
+    from lia_ral.backend.unsupervised import expand_llr
     s = np.asarray([-5.0, 0.0, 5.0])
     p = expand_llr(s, theta=0.0, beta=1.0)
     assert p[0] < 0.01 and abs(p[1] - 0.5) < 1e-9 and p[2] > 0.99
@@ -190,7 +190,7 @@ def test_expand_llr_logistic():
 
 
 def test_compute_priors_sequence():
-    from lia_ral_tpu.backend.unsupervised import compute_priors
+    from lia_ral.backend.unsupervised import compute_priors
     dec = np.asarray([0.0, 2.0, -1.0, 3.0])  # elt 0 = enrollment
     pt, pi = compute_priors(dec, init_prior_tar=1.0, init_prior_imp=1.0,
                             optimal_score=0.5)
@@ -201,7 +201,7 @@ def test_compute_priors_sequence():
 
 
 def test_oracle_modes():
-    from lia_ral_tpu.backend.unsupervised import oracle
+    from lia_ral.backend.unsupervised import oracle
     tt = [("spk1", "t1"), ("spk2", "t9")]
     assert oracle("spk1", "t1", 2.0, tt) == 1.0
     assert oracle("spk1", "t2", 2.0, tt) == 0.0
@@ -213,7 +213,7 @@ def test_oracle_modes():
 
 
 def test_tnorm_cache_and_normalize():
-    from lia_ral_tpu.backend.unsupervised import (load_tnorm_param,
+    from lia_ral.backend.unsupervised import (load_tnorm_param,
                                                   normalize_score)
     res = [("imp1", "tA", 1.0), ("imp2", "tA", 3.0),
            ("imp1", "tB", -1.0), ("imp2", "tB", 1.0)]
@@ -229,7 +229,7 @@ def test_tnorm_cache_and_normalize():
 
 
 def test_search_llr_and_fuse_map_means():
-    from lia_ral_tpu.backend.unsupervised import (fuse_map_means,
+    from lia_ral.backend.unsupervised import (fuse_map_means,
                                                   search_llr_from_res_file)
     res = [("s1", "t1", 0.5), ("s1", "t2", -0.5)]
     assert search_llr_from_res_file(res, "s1", "t2") == -0.5
@@ -252,11 +252,11 @@ def _small_world(rng, k=8, d=4):
 
 
 def test_znorm_param_online(rng):
-    from lia_ral_tpu.backend.unsupervised import (
+    from lia_ral.backend.unsupervised import (
         compute_and_store_znorm_param)
     world, x = _small_world(rng)
     client_data = jnp.asarray(x[:800] + 1.0)
-    from lia_ral_tpu.gmm.map_adapt import adapt_model
+    from lia_ral.gmm.map_adapt import adapt_model
     client = adapt_model(jax.random.key(2), client_data,
                          jnp.ones(800, jnp.float32), world,
                          MapCfg(method="MAPOccDep", mean_adapt=True))
@@ -269,7 +269,7 @@ def test_znorm_param_online(rng):
 
 
 def test_cross_valid_selects_split(rng):
-    from lia_ral_tpu.backend.unsupervised import cross_valid
+    from lia_ral.backend.unsupervised import cross_valid
     world, x = _small_world(rng)
     xe = jnp.asarray(x[:1500] + 1.0)
     w = jnp.ones(1500, jnp.float32)

@@ -5,16 +5,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from lia_ral_tpu.config import Config
-from lia_ral_tpu.gmm import GmmDiag
-from lia_ral_tpu.io.labels import Segment
-from lia_ral_tpu.io.nist import ScoreLine, read_nist_scores, write_nist_scores
-from lia_ral_tpu.utils import (NGramModel, confusion_matrix,
+from lia_ral.config import Config
+from lia_ral.gmm import GmmDiag
+from lia_ral.io.labels import Segment
+from lia_ral.io.nist import ScoreLine, read_nist_scores, write_nist_scores
+from lia_ral.utils import (NGramModel, confusion_matrix,
                                fuse_label_files, fuse_scores, gmm_tokenize,
                                max_score_identification, ngram_counts,
                                poly_expand, score_warp, scoring_decisions,
                                sequence_decode, time_cluster_filter)
-from lia_ral_tpu.utils.polyexp import poly_expansion_size
+from lia_ral.utils.polyexp import poly_expansion_size
 
 
 def test_scoring_decisions():
@@ -92,7 +92,7 @@ def test_label_fusion_and_timecluster():
 
 
 def test_utils_tool_dispatch(tmp_path):
-    from lia_ral_tpu.tools import utils_tools
+    from lia_ral.tools import utils_tools
     p = str(tmp_path / "in.nist")
     write_nist_scores(p, [ScoreLine("M", "a", "-", "s", 0.7),
                           ScoreLine("M", "b", "-", "s", -0.2)])
@@ -105,9 +105,9 @@ def test_utils_tool_dispatch(tmp_path):
 
 
 def test_svm_tool_roundtrip(tmp_path, rng):
-    from lia_ral_tpu.io.lists import write_xlist
-    from lia_ral_tpu.io.matrix import write_matrix_file
-    from lia_ral_tpu.tools import utils_tools
+    from lia_ral.io.lists import write_xlist
+    from lia_ral.io.matrix import write_matrix_file
+    from lia_ral.tools import utils_tools
     d = str(tmp_path)
     dim = 8
     target_vec = rng.standard_normal(dim) + 3.0
@@ -140,10 +140,10 @@ def test_svm_tool_roundtrip(tmp_path, rng):
 
 
 def test_label_ngram(tmp_path):
-    from lia_ral_tpu.config import Config
-    from lia_ral_tpu.io.labels import read_label_file
-    from lia_ral_tpu.tools import utils_tools
-    from lia_ral_tpu.utils import label_ngram
+    from lia_ral.config import Config
+    from lia_ral.io.labels import read_label_file
+    from lia_ral.tools import utils_tools
+    from lia_ral.utils import label_ngram
 
     # Runs: 1 1 | 2 | 3 3 3 | 2 | 1  → run symbols [1,2,3,2,1]
     syms = [1, 1, 2, 3, 3, 3, 2, 1]
